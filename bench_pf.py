@@ -1,9 +1,9 @@
-"""Benchmark: FastSLAM particle-filter throughput on one chip (config 3).
+"""Benchmark: FastSLAM particle-filter throughput on one GPU (config 3).
 
-Prints ONE JSON line {"metric", "value", "unit", "vs_baseline"}; baseline
-normalization as in bench.py (reference estimated ~1 scan/s, and its
-particle filter would be N times slower still — we conservatively keep the
-1.0 scans/s baseline).
+Prints ONE JSON line {"metric", "value", "unit", "vs_baseline", "device"};
+baseline normalization as in bench.py (reference estimated ~1 scan/s, and
+its particle filter would be N times slower still — we conservatively keep
+the 1.0 scans/s baseline). Refuses to run when JAX's backend is not a GPU.
 """
 
 from __future__ import annotations
@@ -20,9 +20,9 @@ from slam2d_tpu.config import (
     FrontendConfig, GridConfig, MatcherConfig, PFConfig, SensorConfig,
 )
 from slam2d_tpu.data.synth import SynthWorld, simulate_log
+from slam2d_tpu.device import describe, require_gpu, setup_compile_cache
 from slam2d_tpu.pf.fastslam import fastslam_init
 from slam2d_tpu.run.fastslam_run import make_pf_chunk_fn
-from slam2d_tpu.utils.calibration import session_calibration
 
 REFERENCE_SCANS_PER_SEC = 1.0
 
@@ -54,17 +54,12 @@ def main():
     ap.add_argument("--fuse-light-prefix", type=int, default=None,
                     help="PFConfig.fuse_light_prefix override (0 = unfused "
                          "host-gated dispatch; for same-session A/Bs)")
-    ap.add_argument("--images-f32", action="store_true",
-                    help="PFConfig.update_images_f32 (accuracy A/B)")
     ap.add_argument("--carve-shrink", type=float, default=None,
                     help="PFConfig.update_carve_shrink override")
     ap.add_argument("--snapped-endpoints", action="store_true",
                     help="disable update_exact_endpoints (the round-4 "
                          "xy-quantization fix) for A/Bs against the "
                          "round-3 snapped shared update")
-    ap.add_argument("--unfused-endpoints", action="store_true",
-                    help="disable the in-kernel fused endpoint pass "
-                         "(PFConfig.update_fused_endpoints=False) for A/Bs")
     ap.add_argument("--anchor-dither", default=None,
                     help="PFConfig.update_anchor_dither "
                          "(off|random|theta_phase|both) -- carve-anchor /"
@@ -77,7 +72,7 @@ def main():
     # per step): the filter's motion model matched to the robot's spec.
     # The library defaults (0.04/0.02) target 10x noisier logs and make
     # the PF WORSE than this log's odometry (ate 0.31 vs 0.15) while
-    # also resampling more (270 -> 421 scans/s measured at P=100 gated).
+    # also resampling more.
     ap.add_argument("--noise-xy", type=float, default=0.01,
                     help="PF proposal noise (m/step)")
     ap.add_argument("--noise-theta", type=float, default=0.005)
@@ -85,6 +80,8 @@ def main():
                     help="time the single-program lax.cond chunk form "
                          "instead of the host-gated dispatch (comparison)")
     args = ap.parse_args()
+    require_gpu()
+    setup_compile_cache()
 
     cfg = FrontendConfig(
         sensor=SensorConfig(n_beams=180, max_range=12.0),
@@ -112,8 +109,6 @@ def main():
         update_bilinear=args.update_bilinear,
         update_qstep_cells=args.update_qstep_cells,
         update_exact_endpoints=not args.snapped_endpoints,
-        update_fused_endpoints=not args.unfused_endpoints,
-        update_images_f32=args.images_f32,
         **({"update_carve_shrink": args.carve_shrink}
            if args.carve_shrink is not None else {}),
         **({"update_anchor_dither": args.anchor_dither}
@@ -187,7 +182,7 @@ def main():
                 "unit": "scans/s",
                 "vs_baseline": round(rate / REFERENCE_SCANS_PER_SEC, 2),
                 **extra,
-                "session_calibration": session_calibration(),
+                "device": describe(),
             }
         )
     )

@@ -1,8 +1,8 @@
 // Fast CARMEN log parser (native data-loader component).
 //
 // The reference preprocesses CARMEN logs with a line-by-line Python script
-// (SURVEY.md §3 "Data preprocessor"); for multi-GB Radish logs feeding a
-// TPU-speed pipeline, the host-side parse becomes the bottleneck, so this
+// (SURVEY.md §3 "Data preprocessor"); for multi-GB Radish logs feeding an
+// accelerator pipeline, the host-side parse becomes the bottleneck, so this
 // is the framework's native-runtime piece for L0: a single-pass
 // mmap-friendly parser exposed over a C ABI and bound via ctypes
 // (slam2d_tpu/data/native.py). Python fallback stays available.

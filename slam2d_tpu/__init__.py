@@ -1,6 +1,6 @@
-"""slam2d_tpu — a TPU-native 2D LIDAR SLAM engine built on JAX/XLA/Pallas.
+"""slam2d_tpu — a 2D LIDAR SLAM engine built on JAX/XLA.
 
-Re-implements, TPU-first, the full capability set of the reference
+Re-implements, array-first, the full capability set of the reference
 `xiaofeng419/SLAM-2D-LIDAR-SCAN` (see SURVEY.md; the reference mount was
 empty at survey time, so citations refer to SURVEY.md sections rather than
 reference file:line):
@@ -14,7 +14,8 @@ reference file:line):
 
 Design: static shapes everywhere, `lax.scan` over scan chunks, `vmap` over
 particles, `shard_map` over a device mesh for particle/keyframe sharding,
-Pallas kernels for the hot gather/scatter paths.
+plain XLA gathers/scatters on the hot paths (the package name is
+historical: the system was first written for a TPU).
 """
 
 from slam2d_tpu import config  # noqa: F401

@@ -2,7 +2,7 @@
 
 The reference composes poses with ad-hoc trig inside its Python loops
 (SURVEY.md §4.1, §4.4); here the ops are closed-form, broadcastable, and
-jit/vmap-safe so they can live inside `lax.scan` bodies and Pallas-adjacent
+jit/vmap-safe so they can live inside `lax.scan` bodies and vmapped
 code. theta is always wrapped to (-pi, pi].
 """
 

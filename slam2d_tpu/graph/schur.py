@@ -20,7 +20,7 @@ The partition/classification is HOST-side (the edge list lives on the host
 anyway); the device sees static padded index arrays. `optimize_schur` runs
 the blocks as a vmapped batch on one device; `make_optimize_schur_sharded`
 shards the block axis over the mesh with the reduction as an actual psum —
-the collective schedule a TPU pod would run.
+the collective schedule a multi-device run executes.
 """
 
 from __future__ import annotations
@@ -214,10 +214,11 @@ def _iteration_core(
     THIS shard's interior updates combined via psum when psum_axis is set —
     and the total chi^2).
 
-    Runs entirely at full-f32 matmul precision: TPU's default (bf16
-    operand) matmuls perturb the J^T Omega J products and the Schur
-    complement enough to make the near-singular pose-graph systems
-    indefinite, and Cholesky then NaNs (see se2_graph._edge_blocks)."""
+    Runs entirely at full-f32 matmul precision: reduced-precision
+    matmuls (bf16 operands, or TF32 — a GPU's default for f32) perturb
+    the J^T Omega J products and the Schur complement enough to make the
+    near-singular pose-graph systems indefinite, and Cholesky then NaNs
+    (see se2_graph._edge_blocks)."""
     with jax.default_matmul_precision("highest"):
         return _iteration_core_f32(
             poses, g, plan_dev, int_ids, int_valid, sep_ids, I, S, cfg,
@@ -366,7 +367,7 @@ def optimize_schur_sharded(
 ):
     """Schur elimination with the BLOCK axis sharded over the mesh: each
     shard eliminates its keyframe blocks, the reduced separator system is
-    psum-reduced over ICI and solved replicated (SURVEY.md §4.4)."""
+    psum-reduced across devices and solved replicated (SURVEY.md §4.4)."""
     if int(g.n_nodes) == 0 or int(g.n_edges) == 0:
         return g, jnp.float32(0.0)
     n_shards = mesh.shape[axis]

@@ -8,7 +8,7 @@ no bound on separator growth. This module never materializes ANY
 [3K, 3K] object: memory is O(E) edge blocks + O(K) 3x3 diagonal/
 off-diagonal blocks + O(L*K) for the loop-correction columns.
 
-TPU-first formulation — exploit the SLAM graph's shape instead of a
+Array formulation — exploit the SLAM graph's shape instead of a
 general sparse-Cholesky (sequential, pointer-chasing, wrong for XLA):
 
 - A SLAM pose graph is a CHAIN (odometry edges k -> k+1) plus a sparse
@@ -59,14 +59,14 @@ re-anchored; overflow edges cost extra CG iterations and coarse-solve
 accuracy, so drivers should size it >= accepted-loop capacity —
 full-SLAM's cooldown gate bounds the accept rate).
 
-Numerics: runs under jax.default_matmul_precision("highest") — TPU
-default bf16 matmuls make H indefinite (see se2_graph._edge_blocks
-note). Robust kernels / GNC re-weight edges per GN iteration exactly as
+Numerics: runs under jax.default_matmul_precision("highest") —
+reduced-precision matmuls (bf16, or a GPU's default TF32 for f32) make H
+indefinite (see se2_graph._edge_blocks note). Robust kernels / GNC re-weight edges per GN iteration exactly as
 the dense path does.
 
 Reference parity anchor: the reference's backend is a dense
 Python/NumPy GN over an edge list (SURVEY §4.4); this is its
-scale-unbounded TPU form — `optimize_cg` matches `se2_graph.optimize`
+scale-unbounded accelerator form — `optimize_cg` matches `se2_graph.optimize`
 on the small loop graphs and `optimize_hier` runs where dense H cannot
 exist (tests/test_sparse_graph.py: 4096 nodes).
 """
@@ -117,7 +117,7 @@ def _assemble_sparse(poses, g: PoseGraph, robust, damping: float,
     chi = jnp.sum(chi)
     if psum_axis is not None:
         # edge-sharded assembly (optimize_cg_sharded): each shard summed
-        # its LOCAL edge slice; reduce over ICI before the (replicated)
+        # its LOCAL edge slice; reduce across devices before the (replicated)
         # projection/damping below
         D = jax.lax.psum(D, psum_axis)
         O = jax.lax.psum(O, psum_axis)
@@ -536,7 +536,7 @@ def optimize_hier(g: PoseGraph, cfg: GraphConfig):
     info-ratio ~ 1e7) puts f32 residual noise over the lowest modes at
     O(1) meters — measured: flat PCG stalls at err ~ 1.4 where this
     two-stage form matches the f64 answer to centimeters. This is the
-    TPU-native analog of hierarchical/submap pose-graph SLAM.
+    static-shape analog of hierarchical/submap pose-graph SLAM.
     """
     from slam2d_tpu.graph.se2_graph import optimize as optimize_dense
 
@@ -597,7 +597,7 @@ def optimize_cg_sharded(g: PoseGraph, cfg: GraphConfig, mesh,
     """Edge-sharded distributed form of `optimize_cg` (SURVEY §4.4
     "distributed reduction", extended to the matrix-free solver family):
     the EDGE set splits over the mesh, each shard assembles (D, O, b)
-    and applies H from its local slice, and psum reduces over ICI —
+    and applies H from its local slice, and psum reduces across devices —
     the [K]-sized node quantities and the preconditioner factor stay
     replicated (they are bounded by keyframes, not edges, and the PCG
     vectors must be identical on every shard anyway).

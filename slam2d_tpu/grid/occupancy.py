@@ -86,9 +86,9 @@ def raycast_update(
         origin_xy and cell indices are computed as full-grid floor minus
         the integer offset — bit-exact with the full-grid path (a float
         window origin rounds boundary-straddling samples differently).
-      accumulate: "scatter" (XLA scatter-add — fine on CPU) or "mxu"
-        (one-hot matmul accumulation — the fast TPU path). Same samples,
-        same result up to float summation order.
+      accumulate: "scatter" (XLA scatter-add) or "mxu" (one-hot matmul
+        accumulation, ops/mxu_update.py). Same samples, same result up to
+        float summation order and the matmul's bf16 weights.
     Returns:
       updated [H, W] log-odds.
     """
@@ -150,10 +150,7 @@ def raycast_update(
     w = w * enable
 
     if accumulate == "mxu":
-        # Scatter-add as a one-hot matmul (ops/mxu_update.py): XLA's TPU
-        # scatter path serializes — 27 ms for the vmapped FastSLAM-100
-        # update — while the same accumulation is one MXU-shaped
-        # [H, S] @ [S, W] contraction per particle.
+        # scatter-add as one [H, S] @ [S, W] one-hot contraction
         from slam2d_tpu.ops.mxu_update import scatter_add_mxu
 
         img = scatter_add_mxu(rows, cols, w, H, W)
@@ -176,17 +173,15 @@ def raycast_update_dense(
 ):
     """Inverse-sensor-model scan integration with ZERO scatter ops.
 
-    The sparse formulation (raycast_update) scatter-adds ~50k ray samples;
-    XLA lowers scatter-with-duplicates on TPU to a serialized update, which
-    micro-benchmarks showed dominating the whole per-scan cost. This dense
-    formulation instead evaluates the classic inverse sensor model
+    The sparse formulation (raycast_update) scatter-adds ~50k ray samples.
+    This dense formulation instead evaluates the classic inverse sensor model
     (Probabilistic Robotics ch. 9) at EVERY cell of the (windowed) grid:
 
       bearing, distance of the cell from the pose -> nearest beam k ->
       free if distance < r_k - resolution, occupied if |distance - r_k|
       is within half a cell (and the beam actually hit).
 
-    Everything is elementwise VPU math plus one tiny gather from the [B]
+    Everything is elementwise math plus one tiny gather from the [B]
     range table — fully vectorized, vmappable over particles, and exact for
     the wedge between beams (which ray sampling leaves unobserved).
 
@@ -267,93 +262,47 @@ def raycast_update_dense(
     return jnp.clip(out, -cfg.l_clamp, cfg.l_clamp).astype(logodds.dtype)
 
 
-def resolve_update_impl(
-    cfg: GridConfig, sensor: SensorConfig, auto_ctx: str = "frontend"
-) -> str:
-    """Resolve GridConfig.update_impl="auto" to the concrete kernel for
-    this backend and call site (exposed so benches/drivers can REPORT the
-    impl that actually ran — VERDICT r2: the headline bench must say
-    which kernel produced its number). "auto" = sampled rays with
-    scatter-add accumulation on CPU; on TPU a Pallas variant per site:
-    - "pf" -> the pure inverse-sensor-model kernel ("pallas"): PF
-      weighting only compares particles against each other, and measured
-      FastSLAM-100 ATE is unchanged (0.215 vs 0.219) at +4% throughput.
-    - "frontend" -> the HYBRID kernel ("pallas_hybrid": wedge free marks
-      + EXACT endpoint-cell occ): absolute match quality feeds back into
-      tracking; pure-ISM marks degraded ATE 0.177 -> 0.247 on chip while
-      hybrid measures <= sparse on 3 seeds (0.159/0.727/0.375 vs
-      0.177/0.728/0.413, scripts/bench_ate.py).
-    Wide-FOV sensors (> 180 deg) keep the sparse matmul path: the Pallas
-    kernels compare an UNWRAPPED |phi - ab|, so beam angles past pi
-    would never fire."""
-    import math as _math
+UPDATE_IMPLS = ("sparse", "sparse_mxu", "dense")
 
-    import jax as _jax
 
+def resolve_update_impl(cfg: GridConfig) -> str:
+    """Resolve GridConfig.update_impl to the concrete kernel that runs
+    (exposed so benches/drivers can REPORT it). "auto" = sampled rays with
+    XLA scatter-add accumulation ("sparse") on every backend and at every
+    call site. Explicit choices: "sparse_mxu" (the same rays, one-hot-matmul
+    accumulation) and "dense" (inverse sensor model at every cell).
+    Unknown values raise."""
     impl = cfg.update_impl
-    if impl != "auto":
-        return impl
-    if _jax.default_backend() != "tpu":
+    if impl == "auto":
         return "sparse"
-    if sensor.fov_rad > _math.pi + 1e-6:
-        return "sparse_mxu"
-    return "pallas" if auto_ctx == "pf" else "pallas_hybrid"
+    if impl not in UPDATE_IMPLS:
+        raise ValueError(
+            f"unknown update_impl {impl!r}; valid values: "
+            f"{('auto',) + UPDATE_IMPLS}"
+        )
+    return impl
 
 
 def integrate_scan(
     logodds, pose, ranges, cfg: GridConfig, sensor: SensorConfig,
-    enable=1.0, origin_xy=None, origin_rc=None, auto_ctx: str = "frontend",
+    enable=1.0, origin_xy=None, origin_rc=None,
 ):
     """Scan integration dispatcher: GridConfig.update_impl picks the kernel
-    ("sparse" | "sparse_mxu" | "auto" | "dense" | "pallas" | "pallas_ray"
-    | "pallas_hybrid"). "auto" = sampled rays with scatter-add
-    accumulation on CPU; on TPU a Pallas kernel variant per call site.
-
-    auto_ctx disambiguates "auto" per call site (mirrors the scorer's
-    "auto"/"auto_refine" split):
-    - "pf" -> the pure inverse-sensor-model Pallas kernel ("pallas"):
-      PF weighting only compares particles' scores against each other,
-      and measured FastSLAM-100 ATE is unchanged (0.215 vs 0.219) at
-      +4% throughput over the sparse matmul path.
-    - "frontend" -> the HYBRID Pallas kernel ("pallas_hybrid": wedge
-      free marks + EXACT endpoint-cell occ): absolute match quality
-      feeds back into the frontend's tracking, and the pure-ISM marks
-      degraded ATE 0.177 -> 0.247 m on chip, while hybrid measures
-      <= the sparse path on 3 seeds (0.159/0.727/0.375 vs
-      0.177/0.728/0.413, scripts/bench_ate.py) at slightly higher
-      end-to-end throughput (the sparse path pays an extra XLA
-      beam-table build per scan that the kernel subsumes).
+    (see resolve_update_impl: "auto" | "sparse" | "sparse_mxu" | "dense").
 
     origin_rc: integer window offset on the config grid's lattice (see
     raycast_update) — the sparse paths use it for bit-exact windowed
-    updates; the dense/pallas inverse-sensor-model kernels evaluate
-    continuous cell centers, so they derive the equivalent float origin."""
-    impl = resolve_update_impl(cfg, sensor, auto_ctx)
-
-    if origin_rc is not None and impl in (
-        "pallas", "pallas_ray", "pallas_hybrid", "dense"
-    ):
-        origin_xy = (
-            cfg.origin_x
-            + origin_rc[1].astype(jnp.float32) * cfg.resolution,
-            cfg.origin_y
-            + origin_rc[0].astype(jnp.float32) * cfg.resolution,
-        )
-    if impl in ("pallas", "pallas_ray", "pallas_hybrid"):
-        import jax as _jax
-
-        from slam2d_tpu.ops.pallas_update import pallas_dense_update
-
-        variant = {
-            "pallas": "ism", "pallas_ray": "ray", "pallas_hybrid": "hybrid",
-        }[impl]
-        return pallas_dense_update(
-            logodds, pose, ranges, cfg, sensor, enable=enable,
-            origin_xy=origin_xy,
-            interpret=_jax.default_backend() != "tpu",
-            variant=variant,
-        )
+    updates; the dense inverse-sensor-model update evaluates continuous
+    cell centers, so it derives the equivalent float origin."""
+    impl = resolve_update_impl(cfg)
     if impl == "dense":
+        if origin_rc is not None:
+            origin_xy = (
+                cfg.origin_x
+                + origin_rc[1].astype(jnp.float32) * cfg.resolution,
+                cfg.origin_y
+                + origin_rc[0].astype(jnp.float32) * cfg.resolution,
+            )
         return raycast_update_dense(
             logodds, pose, ranges, cfg, sensor, enable=enable,
             origin_xy=origin_xy,
@@ -367,7 +316,7 @@ def integrate_scan(
 
 def endpoint_update(
     logodds, pose, ranges, cfg: GridConfig, sensor: SensorConfig,
-    enable=1.0, origin_rc=None, accumulate: str = "auto",
+    enable=1.0, origin_rc=None, accumulate: str = "scatter",
 ):
     """Occupied-ENDPOINT marks only — the sparse raycast_update's endpoint
     section with the free-space samples stripped (~B points instead of
@@ -398,10 +347,6 @@ def endpoint_update(
     w = jnp.where(hit & e_in, cfg.l_occ, 0.0) * enable
     erow = jnp.clip(erow, 0, H - 1)
     ecol = jnp.clip(ecol, 0, W - 1)
-    if accumulate == "auto":
-        import jax as _jax
-
-        accumulate = "mxu" if _jax.default_backend() == "tpu" else "scatter"
     if accumulate == "mxu":
         from slam2d_tpu.ops.mxu_update import scatter_add_mxu
 

@@ -158,8 +158,8 @@ def _span_candidates(origin_rc, size: int, tile: int):
 
 def _span_onehots(coords, origin_rc, size: int, tile: int):
     """Candidate-tile bookkeeping for a [size, size] window as ONE-HOT
-    operands (TPU: dynamic-index slices/scatters serialize; one-hot
-    matmuls ride the MXU — see ops/mxu_update.py and the dev notes).
+    operands for the slot-select and placement contractions (run at
+    HIGHEST precision, so they copy exactly).
 
     Returns (oh_found [nc, nc, S], oh_all [nc, nc, S], R [nc, size, tile],
     C [nc, size, tile], rmask [nc, tile], cmask [nc, tile]) where
@@ -208,8 +208,7 @@ def gather_region(grid: TiledGrid, cfg: TileConfig, origin_rc, size: int):
     origin_rc (row, col). Missing tiles read as zeros.
 
     Formulated as one-hot contractions (slot selection over the pool +
-    row/col placement) — the dynamic_update_slice form serialized on TPU
-    at ~1.4 ms per 288^2 window; this runs on the MXU."""
+    row/col placement) at HIGHEST precision, so the copy is exact."""
     tile = cfg.tile
     oh_found, _, R, C, _, _ = _span_onehots(
         grid.coords, origin_rc, size, tile

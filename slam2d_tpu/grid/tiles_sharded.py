@@ -2,13 +2,13 @@
 
 The tile pool's SLOT axis is sharded over the device mesh: map capacity
 scales with device count (each device holds n_slots/n_shards tiles in its
-HBM). The coords table stays replicated (it is tiny and host-managed).
+memory). The coords table stays replicated (it is tiny and host-managed).
 
 Window access inside shard_map:
 
 - gather: every shard pastes the candidate tiles IT OWNS into a local
   window; one `psum` of the [size, size] window merges them (a window is
-  ~1 MB — the psum rides ICI in ~10 us; the robot's working set is only
+  ~1 MB — one small collective; the robot's working set is only
   the ~4 tiles under the current window, so this is bandwidth-trivial).
 - scatter: updates are computed replicated; each shard writes back only the
   parts of tiles it owns (pure masking — no collective at all).

@@ -4,8 +4,8 @@ A scan only touches cells within max_range of the sensor, and the matcher
 only reads the search space near the scan's endpoints — yet the naive
 formulation gathers/scatters against the full [H, W] map. Extracting a
 static-shape window via `dynamic_slice` (a fast contiguous copy), operating
-on it, and writing it back keeps the random-access working set small enough
-for VMEM and cuts the full-map memory traffic out of the per-scan cost.
+on it, and writing it back keeps the random-access working set small (cache
+resident) and cuts the full-map memory traffic out of the per-scan cost.
 
 Window sizes are compile-time constants derived from config (max range,
 search window, blur halo), so everything stays jit-static.

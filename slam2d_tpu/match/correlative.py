@@ -1,7 +1,7 @@
 """Correlative scan matching over multi-resolution grids (SURVEY.md §4.1, L2).
 
 The reference does a triple Python loop (theta, dx, dy) of per-beam map
-lookups against a Gaussian-smeared occupancy image. TPU-first formulation:
+lookups against a Gaussian-smeared occupancy image. Array formulation:
 
 - the "search space" S is a likelihood field: occupied mask blurred with a
   peak-normalized Gaussian (two separable 1-D convolutions — XLA fuses these
@@ -64,33 +64,20 @@ def build_search_space(
 
     sigma_cells = mcfg.sigma_m / resolution
     k = _gaussian_kernel_1d(sigma_cells, blur_halo_cells(mcfg, resolution))
-    if blur_impl == "pallas":
-        from slam2d_tpu.ops.pallas_blur import separable_blur_pallas
-        import jax as _jax
-
-        blurred = separable_blur_pallas(
-            occ, tuple(float(v) for v in k),
-            interpret=_jax.default_backend() != "tpu",
+    if blur_impl != "xla":
+        raise ValueError(
+            f"unknown blur_impl {blur_impl!r}; valid values: {BLUR_IMPLS}"
         )
-    else:
-        blurred = _separable_blur(occ, k)
+    blurred = _separable_blur(occ, k)
     blur = jnp.clip(blurred, 0.0, 1.0)
     free = (p < mcfg.free_threshold).astype(jnp.float32)
     return blur - mcfg.free_penalty * free * (1.0 - blur)
 
 
 def _separable_blur(img, k: np.ndarray):
-    """Separable blur as static shift-and-add (zero padding).
-
-    XLA's TPU conv path is built for deep channel dims and lowers a
-    [1, 1, H, W] x [1, 1, K, 1] conv poorly (measured ~3 ms on a 576^2
-    window); 2*K statically-shifted adds fuse into a couple of VPU passes.
-    The Pallas single-residency variant (ops/pallas_blur.py) is NOT the
-    default: the frontend's cached-field rebuild fuses this chain into
-    its surrounding update ops and measured 11% FASTER than the Pallas
-    call there (bench.py 6094 vs 5413 scans/s), while the PF's vmapped
-    shared refinement measured faster WITH it (bench_pf 458 vs 445) —
-    build_search_space(blur_impl=...) lets each call site pick."""
+    """Separable blur as static shift-and-add (zero padding): 2*K
+    statically-shifted adds that XLA fuses with the surrounding field
+    math, instead of a [1, 1, H, W] x [1, 1, K, 1] convolution."""
     hw = len(k) // 2
 
     def blur_axis(x, axis):
@@ -130,23 +117,24 @@ def _theta_offsets(mcfg: MatcherConfig) -> np.ndarray:
     ).astype(np.float32)
 
 
-def _resolve_impl(impl: str) -> str:
-    """"auto" = frontend-style single big match: mxu_int8 on TPU (round
-    4 — the scorer is HBM-bound on its materialized one-hot operands;
-    int8 halves every operand byte: same-session chip A/B 8403 vs 7821
-    scans/s headline at 3-seed ATE parity 0.161/0.722/0.364 vs f32
-    control 0.159/0.727/0.375);
-    "auto_refine" = vmapped per-particle refinement (cmx — the Pallas
-    shift-correlation kernel — wins: measured 10.1 ms vs emx 12.9 ms vs
-    mxu 16.5 ms per FastSLAM-100 refine; it reads E and S once from VMEM
-    instead of materializing the R*C shift stack in HBM)."""
-    if impl not in ("auto", "auto_refine"):
-        return impl
-    import jax
+SCORE_IMPLS = ("gather", "mxu", "mxu_int8", "emx")
+BLUR_IMPLS = ("xla",)
 
-    if jax.default_backend() != "tpu":
+
+def _resolve_impl(impl: str) -> str:
+    """Concrete scorer for MatcherConfig.score_impl. Both autos ("auto"
+    for the frontend's single big match, "auto_refine" for vmapped
+    per-particle refinement) resolve to the direct XLA gather on every
+    backend; the one-hot-matmul scorers (mxu, mxu_int8, emx) stay as
+    explicit choices. Unknown values raise."""
+    if impl in ("auto", "auto_refine"):
         return "gather"
-    return "cmx" if impl == "auto_refine" else "mxu_int8"
+    if impl not in SCORE_IMPLS:
+        raise ValueError(
+            f"unknown score_impl {impl!r}; valid values: "
+            f"{('auto', 'auto_refine') + SCORE_IMPLS}"
+        )
+    return impl
 
 
 def score_offsets(
@@ -194,28 +182,16 @@ def score_offsets(
 
     denom = jnp.maximum(jnp.sum(valid.astype(jnp.float32)), 1.0)
 
-    if impl in ("mxu", "mxu_int8", "emx", "cmx"):
+    impl = _resolve_impl(impl)
+    if impl in ("mxu", "mxu_int8", "emx"):
         # requires drows/dcols to be contiguous symmetric ranges (they are,
         # for both matcher passes) — these paths derive offsets from R, C
         from slam2d_tpu.ops.mxu_score import (
-            score_offsets_cmx,
             score_offsets_emx,
             score_offsets_mxu,
             score_offsets_mxu_int8,
         )
 
-        if impl == "cmx":
-            import jax
-
-            return (
-                score_offsets_cmx(
-                    S, pos_row, pos_col, valid,
-                    R=drows.shape[0], C=dcols.shape[0], bilinear=bilinear,
-                    use_bf16=use_bf16,
-                    interpret=jax.default_backend() != "tpu",
-                )
-                / denom
-            )
         if impl == "mxu_int8":
             return (
                 score_offsets_mxu_int8(
@@ -230,27 +206,6 @@ def score_offsets(
                 S, pos_row, pos_col, valid,
                 R=drows.shape[0], C=dcols.shape[0], bilinear=bilinear,
                 use_bf16=use_bf16,
-            )
-            / denom
-        )
-
-    if impl == "pallas":
-        # VMEM patch-accumulate kernel (contiguous offset ranges assumed)
-        import jax
-
-        from slam2d_tpu.ops.pallas_score import (
-            prep_patch_indices,
-            score_offsets_pallas,
-        )
-
-        R, C = drows.shape[0], dcols.shape[0]
-        pr = pos_row if bilinear else jnp.round(pos_row)
-        pc = pos_col if bilinear else jnp.round(pos_col)
-        rows, cols, wts = prep_patch_indices(pr, pc, valid, R, C, H, W)
-        return (
-            score_offsets_pallas(
-                S, rows, cols, wts, R, C,
-                interpret=jax.default_backend() != "tpu",
             )
             / denom
         )

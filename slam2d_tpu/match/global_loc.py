@@ -21,7 +21,7 @@ pose near the border would read S from the opposite side. The sweep
 therefore zero-pads S (and splats E in the padded frame) by the sensor's
 max range, making the correlation exactly LINEAR, and masks out
 displacements whose implied robot cell lies outside the map. Padded dims
-round up to a multiple of 128 (TPU-friendly FFT sizes). `pad_border=False`
+round up to a multiple of 128 (FFT-friendly sizes). `pad_border=False`
 restores the cheaper wrapping sweep for maps known to keep their walls
 well inside the border. Scores are normalized per valid beam, same scale
 as match_scan's.
@@ -82,7 +82,7 @@ def _global_sweep(
         # zero-pad so the circular FFT correlation is exactly LINEAR for
         # every in-map robot cell: endpoints reach at most `pad` cells
         # from the robot, and the zero band absorbs both directions of
-        # wrap. Round up to a multiple of 128 (fast FFT sizes on TPU;
+        # wrap. Round up to a multiple of 128 (FFT-friendly sizes;
         # extra zeros are harmless — the validity mask below restricts
         # the argmax to in-map robot cells).
         Hp = -(-(H + 2 * pad) // 128) * 128

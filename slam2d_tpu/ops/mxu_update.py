@@ -1,20 +1,19 @@
-"""Scatter-add as a one-hot matmul (the map-update analog of mxu_score).
+"""Scatter-add as a one-hot matmul (the map-update analog of mxu_score;
+the explicit "sparse_mxu" alternative to XLA's scatter-add).
 
-XLA lowers a [S]-point scatter-add into an [H, W] target to a serialized
-per-point loop on TPU (measured 27 ms for FastSLAM-100's vmapped windowed
-update — the dominant PF cost once matching is fast). But a weighted
-point-splat image is exactly
+A weighted point-splat image is exactly
 
     img[h, w] = sum_s v_s * onehot(h == r_s) * onehot(w == c_s)
               = (v ⊙ R1)^T @ C1,   R1 [S, H], C1 [S, W] one-hots
 
-— one MXU-shaped [H, S] x [S, W] contraction that also vmaps cleanly over
-particles. Duplicate points accumulate exactly like scatter-add (modulo
-float summation order).
+— one [H, S] x [S, W] contraction that also vmaps cleanly over particles.
+Duplicate points accumulate exactly like scatter-add (modulo float
+summation order).
 
-Weights ride the row factor in f32; the column factor is an exact 0/1
-bf16 operand, so only the contraction itself runs in mixed precision
-(f32 accumulate via preferred_element_type).
+Weights ride the row factor; the column factor is an exact 0/1 operand.
+With use_bf16 the weights round to bf16 (f32 accumulate via
+preferred_element_type); the f32 path asks for HIGHEST precision, since a
+default-precision f32 matmul may run in TF32 on a GPU and round them.
 """
 
 from __future__ import annotations
@@ -33,6 +32,7 @@ def scatter_add_mxu(rows, cols, w, H: int, W: int, use_bf16: bool = True):
     exactly as the scatter path prepares them.
     """
     cdtype = jnp.bfloat16 if use_bf16 else jnp.float32
+    precision = None if use_bf16 else jax.lax.Precision.HIGHEST
     h_iota = jnp.arange(H, dtype=jnp.int32)
     w_iota = jnp.arange(W, dtype=jnp.int32)
     R1 = (rows[:, None] == h_iota).astype(jnp.float32) * w[:, None]
@@ -40,5 +40,6 @@ def scatter_add_mxu(rows, cols, w, H: int, W: int, use_bf16: bool = True):
     return jax.lax.dot_general(
         R1.astype(cdtype), C1,
         dimension_numbers=(((0,), (0,)), ((), ())),
+        precision=precision,
         preferred_element_type=jnp.float32,
     )

@@ -1,8 +1,9 @@
 """Device-mesh helpers (SURVEY.md §3 parallelism inventory).
 
 The mesh + shard_map layer IS our distributed communication backend: XLA
-lowers the collectives (`psum`, `all_gather`, `ppermute`) onto ICI within a
-TPU slice and DCN across hosts — there is no hand-written NCCL/MPI analog.
+lowers the collectives (`psum`, `all_gather`, `ppermute`) onto the devices'
+interconnect (NCCL over NVLink between the GPUs of one host) — there is no
+hand-written communication layer.
 """
 
 from __future__ import annotations
@@ -22,9 +23,10 @@ def init_distributed(
 ):
     """Multi-host bring-up (SURVEY.md §3 "Multi-host").
 
-    Wraps `jax.distributed.initialize`. With no arguments it relies on the
-    cluster environment (TPU pod metadata / SLURM / OpenMPI env vars) that
-    jax auto-detects; arguments override for manual two-process smoke tests:
+    Wraps `jax.distributed.initialize`. With no arguments it relies on a
+    cluster environment jax auto-detects (SLURM / OpenMPI env vars) and
+    fails without one; pass the coordinator address, process count and
+    process id explicitly elsewhere, e.g. for two-process smoke tests:
 
         # terminal 1
         init_distributed("localhost:1234", 2, 0)
@@ -32,8 +34,8 @@ def init_distributed(
         init_distributed("localhost:1234", 2, 1)
 
     After this, `jax.devices()` spans all hosts: build the particle mesh as
-    usual and shard_map's collectives ride ICI within a slice and DCN across
-    slices. Data feeding stays host-local: each process feeds its own
+    usual and shard_map's collectives span the processes. Data feeding
+    stays host-local: each process feeds its own
     `jax.process_index()`-dependent shard of particles.
     """
     jax.distributed.initialize(
@@ -49,7 +51,7 @@ def make_particle_mesh(n_devices: int | None = None, axis: str = PARTICLE_AXIS) 
 
     Uses the first `n_devices` visible devices (all by default). For
     multi-host runs, call `jax.distributed.initialize()` first; `jax.devices()`
-    then spans hosts and XLA routes collectives over ICI/DCN automatically.
+    then spans hosts and XLA routes the collectives automatically.
     """
     devs = jax.devices()
     if n_devices is not None:

@@ -1,23 +1,22 @@
-"""Shared-anchor batched PF refinement: one MXU matmul for all particles.
+"""Shared-anchor batched PF refinement: one matmul for all particles.
 
 The per-particle refinement path (pf/fastslam.py refine_branch with
 refine_mode="per_particle") vmaps match_scan over particles, so every
 particle builds its own endpoint-splat images and scores them against its
-own search window — [T, H*W] x [H*W, R*C] matmuls with M=9, N=25 against
-the MXU's 128x128 tile (~1.4% utilization), repeated P times. Measured at
-FastSLAM-100 shapes the scoring dominates the whole SLAM step.
+own search window — small [T, H*W] x [H*W, R*C] products (M=9, N=25),
+repeated P times.
 
 This module exploits what the vmap cannot: the SCAN is common to all
 particles. If every particle's candidate set is anchored on the map cell
 lattice (candidates = the prior's CELL CENTER plus integer cell offsets)
 and rotation candidates live on one GLOBAL theta grid, then the endpoint
 splat image E depends only on (scan, theta) — shared — and all particles
-score through a single MXU-shaped matmul:
+score through a single matmul:
 
     scores[p, (g, dr, dc)] = <Sp_p, shift_{dr,dc}(E_g)>
                            = (Sp [P, K] @ stack [G*R*C, K]^T)  (K ~ 86k)
 
-with M = P and N = G*R*C both MXU-sized. The per-particle work that
+with M = P and N = G*R*C both large. The per-particle work that
 remains is window extraction + blur (bandwidth) and tiny [P, G, R, C]
 selection math.
 
@@ -36,13 +35,10 @@ Semantics vs the per-particle path (both intentional, ATE-validated):
 
 Reference anchor: this replaces the per-particle correlative refinement
 of FastSLAM's proposal (SURVEY.md §4.3 step 2) — same search box, same
-scoring field, restructured for the TPU's systolic array.
+scoring field, restructured as one large matrix product.
 """
 
 from __future__ import annotations
-
-import functools
-import math
 
 import jax
 import jax.numpy as jnp
@@ -85,24 +81,30 @@ def aligned_window(grid, prior, gcfg, win: int):
     return gw, cell_center_world(center, gcfg)
 
 
-def endpoint_shift_stack(ranges, sensor, thetas, win: int, R: int, C: int,
-                         res: float, cdtype, pad_s: bool = False):
-    """The scan-shared scorer weights: endpoint-splat images for every
-    theta in `thetas`, expanded to all (dr, dc) lags and flattened.
+def shift_stack(E, R: int, C: int):
+    """[G, R*C, win, win]: stack[g, dr*C+dc][h, w] = E[g, h-dr, w-dc],
+    zero where the shift runs off the low edge (the unpadded window
+    frame of endpoint_shift_stack)."""
+    win_r, win_c = E.shape[1], E.shape[2]
+    return jnp.stack(
+        [
+            jnp.pad(E, ((0, 0), (dr, 0), (dc, 0)))[:, :win_r, :win_c]
+            for dr in range(R)
+            for dc in range(C)
+        ],
+        axis=1,
+    )
 
-    With pad_s=False (the unchunked default), the stack lives in the
-    UNPADDED window frame — stack[g, dr*C+dc][h', w'] = E_g[h'-dr, w'-dc],
-    zero where the shift runs off the low edge — so
+
+def endpoint_shift_stack(ranges, sensor, thetas, win: int, R: int, C: int,
+                         res: float, cdtype):
+    """The scan-shared scorer weights: endpoint-splat images for every
+    theta in `thetas`, expanded to all (dr, dc) lags and flattened. The
+    stack lives in the UNPADDED window frame (shift_stack), so
 
         <stack[g, l], S> == <E_g, pad(S)[dr:dr+win, dc:dc+win]>
 
-    i.e. exactly emx's lag semantics with NO padding of S (the padded-S
-    form costs ~1.8 ms of pure pad+copy per FastSLAM-100 refine;
-    measured 457.0 -> 464.3 scans/s). With pad_s=True the stack is built
-    over the (win+R, win+C) zero-padded frame and the caller pads S to
-    match — measured FASTER inside the chunked lax.map (FastSLAM-1000
-    83.0 vs 74.6 scans/s with the cropped form; the pad+crop stack and
-    per-chunk padded S schedule differently there)."""
+    i.e. exactly emx's lag semantics with NO padding of S."""
     pts_local, valid = scan_endpoints_local(ranges, sensor)
     pts = se2.rotate_points(thetas, pts_local[None, :, :])    # [G, B, 2]
     # anchor sits exactly at the window's center cell CENTER, so its
@@ -114,37 +116,7 @@ def endpoint_shift_stack(ranges, sensor, thetas, win: int, R: int, C: int,
         (win, win), pos_row, pos_col, valid, R, C, bilinear=True
     )
     E = _endpoint_splat(win, win, r0, c0, fr, fc, ok, cdtype)
-    if pad_s:
-        stack = jnp.stack(
-            [
-                jnp.pad(E, ((0, 0), (dr, R - dr), (dc, C - dc)))
-                for dr in range(R)
-                for dc in range(C)
-            ],
-            axis=1,
-        )                                            # [G, R*C, win+R, win+C]
-        return stack.reshape(thetas.shape[0] * R * C, (win + R) * (win + C))
-    from slam2d_tpu.ops.pallas_stack import (
-        shift_stack_pallas,
-        stack_supported,
-    )
-
-    if stack_supported(win, R, C, E.dtype.itemsize):
-        # one E read + one stack write; the XLA form below schedules
-        # R*C separate pad+crop copies (measured 1.78 ms/event at
-        # FastSLAM-1000 shapes, the stack build's dominant cost)
-        stack = shift_stack_pallas(
-            E, R, C, interpret=jax.default_backend() != "tpu"
-        )
-    else:
-        stack = jnp.stack(
-            [
-                jnp.pad(E, ((0, 0), (dr, 0), (dc, 0)))[:, :win, :win]
-                for dr in range(R)
-                for dc in range(C)
-            ],
-            axis=1,
-        )                                            # [G, R*C, win, win]
+    stack = shift_stack(E, R, C)                     # [G, R*C, win, win]
     return stack.reshape(thetas.shape[0] * R * C, win * win)
 
 
@@ -192,74 +164,17 @@ def shared_refine(
     if chunked:
         assert P % pf.refine_chunk == 0, (P, pf.refine_chunk)
 
-    # --- per-particle field builder choice ----------------------------------
-    # ops/pallas_field.py fuses the whole per-particle chain (window DMA,
-    # unclamped-frame roll+mask, blur, free-space field, astype) into one
-    # kernel — one HBM read + one write per particle — and is used in BOTH
-    # the vmapped and the chunked lax.map paths when the map shape supports
-    # the aligned-DMA covering argument. Small/odd map shapes fall back to
-    # the XLA chain.
-    from slam2d_tpu.grid.window import blur_halo_cells
-    from slam2d_tpu.match.correlative import _gaussian_kernel_1d
-    from slam2d_tpu.ops.pallas_field import (
-        fused_field_supported,
-        fused_window_field,
-    )
-
-    hw = blur_halo_cells(mcfg, res)
-    fpad = max(8, ((hw + 7) // 8) * 8)
-    Hm, Wm = grids.shape[1], grids.shape[2]
-    use_fused = fused_field_supported(Hm, Wm, win, fpad)
-
-    # stack frame follows the field builder: the fused kernel emits the
-    # unpadded win^2 frame in every mode; the chunked XLA chain keeps the
-    # padded-S frame (see endpoint_shift_stack — pad+crop stacks schedule
-    # worse inside lax.map THERE, but the fused kernel has no such chain)
-    pad_stack = chunked and not use_fused
-    K = (win + R) * (win + C) if pad_stack else win * win
+    K = win * win
     stack_flat = endpoint_shift_stack(
-        ranges, cfg.sensor, thetas, win, R, C, res, cdtype, pad_s=pad_stack
+        ranges, cfg.sensor, thetas, win, R, C, res, cdtype
     )
-
-    def fused_scores(grids_c, priors_c):
-        centers = jax.vmap(lambda pr: world_to_cell(pr[:2], gcfg))(priors_c)
-        taps = tuple(
-            float(v) for v in _gaussian_kernel_1d(mcfg.sigma_m / res, hw)
-        )
-        Sp = fused_window_field(
-            grids_c,
-            centers - win // 2,
-            win,
-            taps,
-            1.0 / mcfg.occ_evidence_sat,
-            math.log(mcfg.free_threshold / (1.0 - mcfg.free_threshold)),
-            mcfg.free_penalty,
-            out_dtype=cdtype,
-            interpret=jax.default_backend() != "tpu",
-        )
-        raw = (
-            jax.lax.dot_general(
-                Sp.reshape(Sp.shape[0], K), stack_flat,
-                dimension_numbers=(((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32,
-            )
-            / denom
-        )
-        return raw, cell_center_world(centers, gcfg)
-
-    # VMEM cap for the whole-array-resident blur kernel: Mosaic's scoped
-    # stack OOMs at 512-cell windows (20.2M vs the 16M limit, measured on
-    # chip); 448 keeps ~30% headroom. Larger windows keep the XLA chain.
-    blur_impl = "pallas" if (win <= 448 and not chunked) else "xla"
 
     def chunk_scores(args):
         grids_c, priors_c = args
 
         def one(grid, prior):
             gw, anchor_xy = aligned_window(grid, prior, gcfg, win)
-            S = build_search_space(gw, mcfg, res, blur_impl=blur_impl)
-            if pad_stack:
-                S = jnp.pad(S, ((0, R), (0, C)))
+            S = build_search_space(gw, mcfg, res)
             return S.astype(cdtype).reshape(K), anchor_xy
 
         Sp_flat, anchor_xy = jax.vmap(one)(grids_c, priors_c)
@@ -275,9 +190,8 @@ def shared_refine(
 
     if chunked:
         nc = P // pf.refine_chunk
-        fn = (lambda a: fused_scores(*a)) if use_fused else chunk_scores
         raw, anchor_xy = jax.lax.map(
-            fn,
+            chunk_scores,
             (
                 grids.reshape(nc, pf.refine_chunk, *grids.shape[1:]),
                 priors.reshape(nc, pf.refine_chunk, 3),
@@ -285,8 +199,6 @@ def shared_refine(
         )
         raw = raw.reshape(P, G * R * C)
         anchor_xy = anchor_xy.reshape(P, 2)
-    elif use_fused:
-        raw, anchor_xy = fused_scores(grids, priors)
     else:
         raw, anchor_xy = chunk_scores((grids, priors))
     raw = raw.reshape(P, G, R, C)

@@ -1,9 +1,7 @@
 """Shared-anchor batched PF map update: G scan images, P shifted adds.
 
-The per-particle update path (vmapped _windowed_update) runs the dense
-update kernel once per particle — at P=1000 that is ~34 ms per update
-event, VPU-compute-bound (the kernel evaluates every (cell, beam) pair
-per particle). But the SCAN is common to all particles, exactly as in
+The per-particle update path (vmapped _windowed_update) runs the update
+kernel once per particle. But the SCAN is common to all particles, exactly as in
 pf/shared_refine.py: if each particle's update is anchored on the map
 cell lattice (applied at its pose's CELL CENTER) and rotations are
 quantized to a global theta grid, the update IMAGE depends only on
@@ -12,9 +10,9 @@ quantized to a global theta grid, the update IMAGE depends only on
   1. build G update images of the scan, each in a window frame whose
      center cell holds the sensor (G kernel runs on ONE window instead
      of P),
-  2. per particle: select its slot's image (a [P, G] one-hot matmul —
-     G is small) and ADD it into its map window at its anchor cell
-     (pure HBM bandwidth).
+  2. per particle: select its slot's image (a row gather — exact) and
+     ADD it into its map window at its anchor cell (pure memory
+     bandwidth).
 
 Quantization semantics (intentional, ATE-validated like shared_refine's):
 marks land at the pose's cell-center + slot-heading rather than the exact
@@ -109,13 +107,7 @@ def shared_update(logodds, poses, ranges, cfg: FrontendConfig,
                   pf: PFConfig, dither_key=None):
     """Update every particle's map with one scan (module docstring).
 
-    logodds: [P, H, W]; poses: [P, 3]. Returns updated [P, H, W].
-
-    DONATION CONTRACT: on the Pallas path the logodds buffer is DONATED
-    (shared_apply_update has donate_argnums=(0,)) and updated in place —
-    callers must not reuse their logodds reference after this call on
-    backends that honor donation (TPU). Pass jnp.array(logodds) to keep
-    the original alive."""
+    logodds: [P, H, W]; poses: [P, 3]. Returns updated [P, H, W]."""
     import dataclasses
 
     gcfg = cfg.grid
@@ -149,7 +141,7 @@ def shared_update(logodds, poses, ranges, cfg: FrontendConfig,
     dmode = getattr(pf, "update_anchor_dither", "off")
     if dmode not in ("off", "random", "theta_phase", "both"):
         # fail loudly: a misspelled mode would otherwise silently run
-        # the undithered control (and poison multi-hour chip A/Bs)
+        # the undithered control (and poison multi-hour A/Bs)
         raise ValueError(f"unknown update_anchor_dither {dmode!r}")
     if dither_key is not None and dmode in ("theta_phase", "both"):
         k_th = jax.random.fold_in(dither_key, 1)
@@ -181,7 +173,7 @@ def shared_update(logodds, poses, ranges, cfg: FrontendConfig,
     # grid/occupancy.endpoint_update). Round-4 axis probes pinned the
     # shared update's +0.09 seed-averaged ATE gap on the TRANSLATION
     # quantization (quantized_xy_only 0.250 vs quantized_theta_only
-    # 0.183, per_particle 0.166, 4 seeds, chip); the endpoint marks are
+    # 0.183, per_particle 0.166, 4 seeds); the endpoint marks are
     # what the correlative matcher locks onto, so they must not snap.
     exact_ep = bool(getattr(pf, "update_exact_endpoints", False))
     img_ranges = ranges
@@ -199,7 +191,7 @@ def shared_update(logodds, poses, ranges, cfg: FrontendConfig,
         pose_g = jnp.concatenate([off_xy, th[None]])
         return integrate_scan(
             jnp.zeros((win, win), jnp.float32), pose_g, img_ranges,
-            img_cfg, cfg.sensor, origin_xy=img_origin, auto_ctx="pf",
+            img_cfg, cfg.sensor, origin_xy=img_origin,
         )
 
     # ---- optional sub-cell anchors (update_subcell=2) ---------------------
@@ -245,36 +237,23 @@ def shared_update(logodds, poses, ranges, cfg: FrontendConfig,
         )                                                # [G*Q*Q, win, win]
         G = G * Q * Q
     else:
-        # vmap (one leading pallas grid dim) schedules the G kernel runs
-        # better than lax.map's sequential loop
         images = jax.vmap(
             lambda th: one_image(th, jnp.zeros((2,), jnp.float32))
         )(slot_theta)                                    # [G, win, win]
 
-    # keep the VMEM-resident image stack within budget: bf16 images above
-    # ~4 MB f32 (the increments are a few tenths — bf16 ulp ~2e-3 there).
-    # update_images_f32 keeps them f32 regardless (the accuracy A/B for
-    # the exact-endpoint residual: at bench shapes the stack is 4.2 MB —
-    # right past the cast boundary)
-    if (images.size * 4 > 4 * 2**20
-            and not bool(getattr(pf, "update_images_f32", False))):
-        images = images.astype(jnp.bfloat16)
+    # images follow the map dtype (the increments are a few tenths; a bf16
+    # map rounds them on the add either way)
+    images = images.astype(logodds.dtype)
 
     # ---- per-particle select + shifted add -------------------------------
-
-    from slam2d_tpu.ops.pallas_apply import (
-        shared_apply_supported,
-        shared_apply_update,
-    )
-
-    Hg, Wg = logodds.shape[-2:]
     # Bilinear sub-cell placement (update_bilinear): land each particle's
     # image at anchor + frac (a 2x2-tap blend) instead of snapping to the
     # anchor cell — removes the shared update's TRANSLATION quantization
-    # exactly to first order at no extra HBM traffic (the round-3
-    # quantized_per_particle A/B pinned the +0.10-ATE gap on the
-    # quantization semantics). Redundant with update_subcell>1.
+    # to first order at no extra memory traffic (the quantized_per_particle
+    # A/B pinned the ATE gap on the quantization semantics). Redundant
+    # with update_subcell>1.
     bilinear = bool(getattr(pf, "update_bilinear", False)) and Q == 1
+    imgs_p = jnp.take(images, slot, axis=0)           # [P, win, win]
     if bilinear:
         centers_b = jax.vmap(lambda a: cell_center_world(a, gcfg))(anchors)
         frac_rc = jnp.stack(
@@ -284,71 +263,42 @@ def shared_update(logodds, poses, ranges, cfg: FrontendConfig,
             ],
             axis=1,
         )
-    else:
-        frac_rc = None
-    def finish(out):
-        if not exact_ep:
-            return out
-        return _exact_endpoint_pass(out, poses, anchors, ranges, cfg, pf)
+        imgs_p = bilinear_place(imgs_p.astype(jnp.float32), frac_rc)
+    out = apply_images(logodds, anchors, imgs_p, win, gcfg.l_clamp,
+                       pf.refine_chunk)
+    if exact_ep:
+        out = _exact_endpoint_pass(out, poses, anchors, ranges, cfg, pf)
+    return out
 
-    # Fused exact-endpoint pass (VERDICT r4 item 4): the occupancy marks
-    # ride the apply kernel's window residency — the separate pass cost a
-    # second read+write of every particle's window. Numerics mirror the
-    # unfused path op for op (ops/pallas_apply._apply_kernel docnote).
-    fuse_ep = exact_ep and bool(getattr(pf, "update_fused_endpoints", True))
-    B = ranges.shape[-1]
-    Bpad = ((B + 127) // 128) * 128
-    if shared_apply_supported(
-        Hg, Wg, win,
-        n_images=G,
-        image_bytes=images.dtype.itemsize,
-        map_bytes=logodds.dtype.itemsize,
-        bilinear=bilinear,
-        ep_beams=Bpad if fuse_ep else 0,
-    ):
-        ep_kw = {}
-        if fuse_ep:
-            ep_r, ep_c, ep_w = _endpoint_operands(
-                poses, anchors, ranges, cfg, win, Hg, Wg, Bpad
-            )
-            ep_kw = dict(ep_rows=ep_r, ep_cols=ep_c, ep_w=ep_w)
-        # one read + one write of each particle's window, images VMEM-
-        # resident, in-place on the donated map stack (module docstring)
-        out = shared_apply_update(
-            logodds, anchors, slot, images, win, float(gcfg.l_clamp),
-            interpret=jax.default_backend() != "tpu",
-            frac_rc=frac_rc,
-            **ep_kw,
-        )
-        return out if fuse_ep else finish(out)
 
-    # XLA fallback (small/odd map shapes): slot select as a one-hot
-    # matmul (G is tiny; a big-row gather would serialize on TPU)
-    onehot = (
-        slot[:, None] == jnp.arange(G, dtype=jnp.int32)[None, :]
-    ).astype(jnp.float32)
-    imgs_p = jnp.dot(
-        onehot, images.reshape(G, win * win),
-        preferred_element_type=jnp.float32,
-    ).reshape(P, win, win)                            # [P, win, win]
-    if bilinear:
-        # same 2x2-tap sub-cell placement as the Pallas path; the window
-        # has >= 8 cells of slack past max_range, so the +-1-cell shift
-        # never clips real content at interior anchors
-        def blend(img, fr):
-            b = jnp.floor(fr).astype(jnp.int32)
-            s = fr - b.astype(jnp.float32)
-            img = jnp.roll(img, (b[0], b[1]), axis=(0, 1))
-            img = img * (1.0 - s[0]) + jnp.roll(img, 1, axis=0) * s[0]
-            img = img * (1.0 - s[1]) + jnp.roll(img, 1, axis=1) * s[1]
-            return img
+def bilinear_place(imgs, frac_rc):
+    """Shift each [win, win] image by its fractional (row, col) offset
+    with a 2x2-tap blend — the mass centroid moves by exactly frac_rc.
+    The update window has >= 8 cells of slack past max_range, so the
+    +-1-cell shift never clips real content at interior anchors."""
 
-        imgs_p = jax.vmap(blend)(imgs_p, frac_rc)
+    def blend(img, fr):
+        b = jnp.floor(fr).astype(jnp.int32)
+        s = fr - b.astype(jnp.float32)
+        img = jnp.roll(img, (b[0], b[1]), axis=(0, 1))
+        img = img * (1.0 - s[0]) + jnp.roll(img, 1, axis=0) * s[0]
+        img = img * (1.0 - s[1]) + jnp.roll(img, 1, axis=1) * s[1]
+        return img
+
+    return jax.vmap(blend)(imgs, frac_rc)
+
+
+def apply_images(logodds, anchors, imgs_p, win: int, l_clamp: float,
+                 chunk: int = 0):
+    """Add imgs_p[p] into logodds[p]'s win x win window centered on cell
+    anchors[p], clamped to +-l_clamp. At map borders the window clamps
+    inside the map and the image cells that fall outside it drop.
+    `chunk` > 0 processes particles in lax.map chunks of that size."""
 
     def apply(g, anchor, img):
         gw, (r0, c0) = extract_window(g, anchor, win)
         # at map borders extract_window clamps; roll the IMAGE to the
-        # clamped frame and drop the out-of-map band (mode="drop")
+        # clamped frame and drop the out-of-map band
         dr = (anchor[0] - win // 2) - r0
         dc = (anchor[1] - win // 2) - c0
         img2 = jnp.roll(img, (dr, dc), axis=(0, 1))
@@ -357,77 +307,33 @@ def shared_update(logodds, poses, ranges, cfg: FrontendConfig,
         cmask = (i - dc >= 0) & (i - dc < win)
         img2 = img2 * (rmask[:, None] & cmask[None, :]).astype(img2.dtype)
         gw2 = jnp.clip(
-            gw.astype(jnp.float32) + img2, -gcfg.l_clamp, gcfg.l_clamp
+            gw.astype(jnp.float32) + img2.astype(jnp.float32),
+            -l_clamp, l_clamp,
         ).astype(g.dtype)
         return write_window(g, gw2, (r0, c0))
 
-    if pf.refine_chunk and P > pf.refine_chunk:
-        nc = P // pf.refine_chunk
+    P = logodds.shape[0]
+    if chunk and P > chunk:
+        nc = P // chunk
         Hg, Wg = logodds.shape[-2:]
         out = jax.lax.map(
             lambda args: jax.vmap(apply)(args[0], args[1], args[2]),
             (
-                logodds.reshape(nc, pf.refine_chunk, Hg, Wg),
-                anchors.reshape(nc, pf.refine_chunk, 2),
-                imgs_p.reshape(nc, pf.refine_chunk, win, win),
+                logodds.reshape(nc, chunk, Hg, Wg),
+                anchors.reshape(nc, chunk, 2),
+                imgs_p.reshape(nc, chunk, win, win),
             ),
         )
-        return finish(out.reshape(P, Hg, Wg))
-    return finish(jax.vmap(apply)(logodds, anchors, imgs_p))
-
-
-def _endpoint_operands(poses, anchors, ranges, cfg: FrontendConfig,
-                       win: int, Hg: int, Wg: int, Bpad: int):
-    """Per-particle exact-endpoint MAP cells + weights for the fused
-    Pallas apply — the masking mirrors grid/occupancy.endpoint_update
-    at the unfused pass's window (origin = window_origin(anchor, win)):
-    only hits (min_range < r < max_range) INSIDE that win x win region
-    carry weight l_occ; everything else is w = 0 (incl. the beam pad)."""
-    from slam2d_tpu.grid.occupancy import beam_angles
-    from slam2d_tpu.grid.window import window_origin
-
-    gcfg = cfg.grid
-    sensor = cfg.sensor
-    res = gcfg.resolution
-    r = ranges.astype(jnp.float32)                      # [B], shared
-    valid = (r > sensor.min_range) & jnp.isfinite(r)
-    hit = valid & (r < sensor.max_range)
-    r_clip = jnp.clip(r, 0.0, sensor.max_range)
-    base = beam_angles(sensor)
-
-    def one(pose, anchor):
-        angles = base + pose[2]
-        ex = pose[0] + jnp.cos(angles) * r_clip
-        ey = pose[1] + jnp.sin(angles) * r_clip
-        ecol = jnp.floor((ex - gcfg.origin_x) / res).astype(jnp.int32)
-        erow = jnp.floor((ey - gcfg.origin_y) / res).astype(jnp.int32)
-        r0, c0 = window_origin(anchor, win, Hg, Wg)
-        e_in = (
-            (erow >= r0) & (erow < r0 + win)
-            & (ecol >= c0) & (ecol < c0 + win)
-        )
-        w = jnp.where(hit & e_in, jnp.float32(gcfg.l_occ), 0.0)
-        # clip like endpoint_update does (w = 0 rows never contribute)
-        erow = jnp.clip(erow, 0, Hg - 1)
-        ecol = jnp.clip(ecol, 0, Wg - 1)
-        padn = Bpad - erow.shape[0]
-        return (
-            jnp.pad(erow, (0, padn)),
-            jnp.pad(ecol, (0, padn)),
-            jnp.pad(w, (0, padn)),
-        )
-
-    return jax.vmap(one)(poses, anchors)
+        return out.reshape(P, Hg, Wg)
+    return jax.vmap(apply)(logodds, anchors, imgs_p)
 
 
 def _exact_endpoint_pass(logodds, poses, anchors, ranges,
                          cfg: FrontendConfig, pf: PFConfig):
     """Add each particle's occupancy marks at its EXACT endpoint cells
     (grid/occupancy.endpoint_update) inside the same anchor-centered
-    update window the shared apply wrote. ~B points/particle — scatter-
-    cheap next to the dense carve; on TPU the accumulation is the
-    one-hot-matmul form (ops/mxu_update.py), honoring the no-XLA-scatter
-    rule."""
+    update window the shared apply wrote. ~B points/particle of
+    scatter-add — cheap next to the dense carve."""
     from slam2d_tpu.grid.occupancy import endpoint_update
 
     gcfg = cfg.grid

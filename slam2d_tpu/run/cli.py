@@ -71,17 +71,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--search-xy", type=float, default=0.3)
     p.add_argument("--search-theta", type=float, default=0.15)
     p.add_argument("--n-theta", type=int, default=13)
-    # kernel dispatch overrides (defaults pick per backend/context)
+    # kernel overrides ("auto" = the plain XLA paths on every backend)
     p.add_argument("--score-impl", default="auto",
-                   choices=["auto", "gather", "mxu", "mxu_int8", "emx",
-                            "cmx", "pallas"],
-                   help="candidate-scoring kernel (auto: mxu_int8 on TPU, "
-                        "gather on CPU; PF refinement auto-picks cmx)")
+                   choices=["auto", "gather", "mxu", "mxu_int8", "emx"],
+                   help="candidate-scoring kernel (auto: gather; the "
+                        "others are one-hot-matmul formulations)")
     p.add_argument("--update-impl", default="auto",
-                   choices=["auto", "sparse", "sparse_mxu", "dense",
-                            "pallas", "pallas_ray", "pallas_hybrid"],
-                   help="scan-integration kernel (auto: matmul accumulation "
-                        "on TPU, scatter on CPU)")
+                   choices=["auto", "sparse", "sparse_mxu", "dense"],
+                   help="scan-integration kernel (auto: sparse — sampled "
+                        "rays with scatter-add accumulation)")
     # pf
     p.add_argument("--particles", type=int, default=32)
     p.add_argument("--shard", action="store_true",
@@ -91,20 +89,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="per-particle map storage dtype (fastslam mode)")
     p.add_argument("--refine-mode", default="auto",
                    choices=["auto", "shared", "per_particle"],
-                   help="PF refinement batching: one shared-stack MXU "
+                   help="PF refinement batching: one shared-stack "
                         "matmul for all particles, or a vmapped "
-                        "per-particle matcher (auto: shared when the "
-                        "per-device particle count amortizes the stack)")
+                        "per-particle matcher (auto: per_particle)")
     p.add_argument("--refine-chunk", type=int, default=0,
                    help="process per-particle refinement/update in chunks "
-                        "of this size (bounds HBM at 1000+ particles)")
+                        "of this size (bounds device memory at 1000+ "
+                        "particles)")
     p.add_argument("--update-mode", default="auto",
                    choices=["auto", "shared", "per_particle"],
                    help="PF map-update batching: G shared theta-slot "
-                        "images applied per particle by the Pallas apply "
-                        "kernel (lattice-quantized marks, ~3x at P=1000), "
-                        "or exact per-particle kernels (auto: shared at "
-                        ">= 256 particles/device)")
+                        "images added per particle (lattice-quantized "
+                        "marks), or exact per-particle updates (auto: "
+                        "per_particle)")
     p.add_argument("--update-qstep-cells", type=float, default=0.5,
                    help="shared-update rotation quantization target: max "
                         "endpoint displacement in cells at max range "
@@ -162,7 +159,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "(needs tensorboardX; silently skipped otherwise)")
     # checkpoint/resume (frontend/fastslam/full modes): [start, end) scans
     p.add_argument("--save-state", default=None,
-                   help="directory to save the pipeline state (orbax)")
+                   help="directory to save the pipeline state (.npz)")
     p.add_argument("--resume-state", default=None,
                    help="directory to restore the pipeline state from")
     p.add_argument("--scan-range", type=int, nargs=2, default=None,
@@ -194,6 +191,10 @@ def load_any_log(path: str, sensor_cfg):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+
+    from slam2d_tpu.device import setup_compile_cache
+
+    setup_compile_cache()
 
     from slam2d_tpu.config import (
         FrontendConfig, GraphConfig, GridConfig, MatcherConfig, PFConfig,

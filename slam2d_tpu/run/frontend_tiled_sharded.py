@@ -2,12 +2,12 @@
 tensor-parallel analog, end to end).
 
 Same per-scan step as run/frontend_tiled.py, but the tile-slot axis is
-sharded over a device mesh: each device's HBM holds n_slots/n_devices
+sharded over a device mesh: each device's memory holds n_slots/n_devices
 tiles, so WORLD CAPACITY scales with the mesh. The hot-path window is
 assembled across shards with one psum (grid/tiles_sharded.py) and written
 back owner-masked with no collective at all; pose tracking is computed
 replicated (the per-scan compute is small next to the map — what the TP
-axis buys here is map HBM, not FLOPs).
+axis buys here is map memory, not FLOPs).
 
 The coords table stays replicated and host-managed, exactly like the
 single-device pool; activation is the same host-side table update.

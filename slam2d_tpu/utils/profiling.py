@@ -66,3 +66,54 @@ def trace(logdir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def device_time_summary(logdir: str, top: int = 12) -> dict:
+    """Reduce the newest `.xplane.pb` under `logdir` to device metrics:
+    per device plane ("/device:GPU:N"), the window (first op start to
+    last op end), the busy time (union of op intervals), the idle
+    share, and the `top` "line: event" names by summed device duration
+    (a plane's lines are its streams and XLA's op/module views, so the
+    same time can show under several lines)."""
+    import glob
+    import os
+
+    from jax.profiler import ProfileData
+
+    paths = glob.glob(os.path.join(logdir, "**", "*.xplane.pb"),
+                      recursive=True)
+    if not paths:
+        raise FileNotFoundError(f"no .xplane.pb under {logdir}")
+    data = ProfileData.from_file(max(paths, key=os.path.getmtime))
+    out = {}
+    for plane in data.planes:
+        if not plane.name.startswith("/device:"):
+            continue
+        spans, per_name = [], defaultdict(int)
+        for line in plane.lines:
+            # module/step lines span whole programs, gaps included
+            op_line = not any(w in line.name for w in ("Module", "Step"))
+            for ev in line.events:
+                if op_line:
+                    spans.append((ev.start_ns, ev.end_ns))
+                per_name[f"{line.name}: {ev.name}"] += ev.duration_ns
+        if not spans:
+            continue
+        spans.sort()
+        busy, cur_s, cur_e = 0, spans[0][0], spans[0][1]
+        for s, e in spans[1:]:
+            if s > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        busy += cur_e - cur_s
+        window = max(e for _, e in spans) - spans[0][0]
+        kernels = sorted(per_name.items(), key=lambda kv: -kv[1])[:top]
+        out[plane.name] = {
+            "window_ms": window / 1e6,
+            "busy_ms": busy / 1e6,
+            "idle_share": 1.0 - busy / window if window else None,
+            "top_events_ms": {k: v / 1e6 for k, v in kernels},
+        }
+    return out

@@ -2,7 +2,7 @@
 "offline PNG/video renderer" — the reference's defining output is a
 matplotlib animation of the map growing as scans integrate).
 
-TPU-first split: frames are captured at CHUNK boundaries, off the jitted
+Host/device split: frames are captured at CHUNK boundaries, off the jitted
 hot path — one map fetch per chunk, opt-in (`--save-video`), so the
 throughput pipelines stay fetch-free unless a video was asked for.
 Frames are composed as pure numpy uint8 images immediately (bounded

@@ -3,7 +3,7 @@
 This is the ATE COMPARATOR, not the product: a deliberately simple,
 per-beam-loop correlative scan matcher + log-odds grid in the style of the
 reference implementation (`xiaofeng419/SLAM-2D-LIDAR-SCAN`), used to sanity
-check that the TPU framework's trajectories are at least as good as what
+check that the framework's trajectories are at least as good as what
 the reference's algorithm class produces on the same logs.
 """
 

@@ -1,4 +1,4 @@
-"""MXU one-hot-matmul scorer == gather scorer (f32, CPU)."""
+"""One-hot-matmul scorer == gather scorer (f32, CPU)."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -29,19 +29,19 @@ def test_frontend_ate_parity_with_numpy_reference():
         odom_noise_xy=0.015, odom_noise_theta=0.006, seed=13,
     )
 
-    _, traj_tpu, _ = run_frontend(log, cfg)
+    _, traj_ours, _ = run_frontend(log, cfg)
     ref = NumpyRefSLAM(n_beams=sensor.n_beams)
     traj_ref = ref.run(log, bootstrap=20)
 
     gt = log["gt_poses"]
-    ate_tpu = ate_rmse(traj_tpu, gt, align=False)
+    ate_ours = ate_rmse(traj_ours, gt, align=False)
     ate_ref = ate_rmse(traj_ref, gt, align=False)
     ate_odom = ate_rmse(log["odom"], gt, align=False)
 
     # the comparator must be functional (improves on or tracks odometry)
     assert ate_ref < max(2.0 * ate_odom, 1.0)
     # parity: our trajectory is at least as good as the reference-style one
-    assert ate_tpu <= ate_ref * 1.1
+    assert ate_ours <= ate_ref * 1.1
 
 
 NOISE_XY, NOISE_TH = 0.02, 0.008

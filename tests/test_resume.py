@@ -149,9 +149,10 @@ def test_tiled_full_slam_split_run_matches_single_run(tmp_path):
 
 def test_fastslam_split_run_matches_single_run(tmp_path):
     """FastSLAM (config 3) checkpoint/resume: PFState (particle poses,
-    per-particle maps, log-weights, RNG) round-trips through orbax and a
-    split run reproduces the single run exactly — the RNG key rides in
-    the state, so proposal noise and resampling draws are identical."""
+    per-particle maps, log-weights, RNG) round-trips through the npz
+    checkpoint and a split run reproduces the single run exactly — the
+    RNG key rides in the state, so proposal noise and resampling draws
+    are identical."""
     from slam2d_tpu.config import PFConfig
     from slam2d_tpu.pf.fastslam import pf_state_template
     from slam2d_tpu.run.fastslam_run import run_fastslam

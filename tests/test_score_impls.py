@@ -1,4 +1,4 @@
-"""All scoring kernels agree (gather / mxu / emx / pallas-interpret)."""
+"""All scoring kernels agree (gather / mxu / emx / mxu_int8)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,7 +23,7 @@ def _inputs(seed=3, T=3, B=24, H=96, W=96):
 def test_three_impls_agree(bilinear):
     S, prior, pts, valid, dthetas, offs, origin = _inputs()
     out = {}
-    for impl in ("gather", "mxu", "emx", "pallas", "cmx"):
+    for impl in ("gather", "mxu", "emx"):
         out[impl] = np.asarray(
             score_offsets(
                 S, prior, pts, valid, dthetas, offs, offs, 0.1, origin,
@@ -32,16 +32,14 @@ def test_three_impls_agree(bilinear):
         )
     np.testing.assert_allclose(out["mxu"], out["gather"], atol=2e-4)
     np.testing.assert_allclose(out["emx"], out["mxu"], atol=2e-4)
-    np.testing.assert_allclose(out["pallas"], out["gather"], atol=2e-4)
-    np.testing.assert_allclose(out["cmx"], out["emx"], atol=2e-4)
 
 
 @pytest.mark.parametrize("bilinear", [False, True])
 def test_int8_impl_tracks_f32(bilinear):
-    """mxu_int8 (round 4: halve the scorer's HBM stream) == gather within
-    the int8 quantization quantum: one global scale on S, one-hot
-    operands exact, so per-sample error <= scale/2 and mean-over-beams
-    error well below it."""
+    """mxu_int8 (int8 operands halve the scorer's memory stream) ==
+    gather within the int8 quantization quantum: one global scale on S,
+    one-hot operands exact, so per-sample error <= scale/2 and
+    mean-over-beams error well below it."""
     S, prior, pts, valid, dthetas, offs, origin = _inputs()
     ref = np.asarray(
         score_offsets(

@@ -160,12 +160,12 @@ def test_explicit_shared_mode_rejects_theta_less_matcher():
     mcfg = dataclasses.replace(MCFG, n_theta=1)
     with pytest.raises(ValueError):
         _resolve_refine_mode(
-            PFConfig(n_particles=8, refine_mode="shared"), mcfg, 8
+            PFConfig(n_particles=8, refine_mode="shared"), mcfg
         )
     # auto silently falls back instead
     assert (
         _resolve_refine_mode(
-            PFConfig(n_particles=64, refine_mode="auto"), mcfg, 64
+            PFConfig(n_particles=64, refine_mode="auto"), mcfg
         )
         == "per_particle"
     )

@@ -105,26 +105,25 @@ def test_shared_quantization_error_bounded():
 
 
 def test_bilinear_apply_centroid_exact():
-    """update_bilinear mechanics: a delta image applied with a fractional
-    offset must land its MASS CENTROID exactly at anchor + frac (to the
-    1/256-cell prefetch quantization); with frac_rc=None it snaps to the
-    anchor cell. (Point-wise L1 vs the exact update is the wrong metric —
-    the blend intentionally spreads mass across the 2x2 neighbors.)"""
-    from slam2d_tpu.ops.pallas_apply import shared_apply_update
+    """update_bilinear mechanics: a delta image placed with a fractional
+    offset must land its MASS CENTROID exactly at anchor + frac; without
+    the blend it snaps to the anchor cell. (Point-wise L1 vs the exact
+    update is the wrong metric — the blend intentionally spreads mass
+    across the 2x2 neighbors.)"""
+    from slam2d_tpu.pf.shared_update import apply_images, bilinear_place
 
     win = 64
     H = 256
     P = 4
-    img = jnp.zeros((1, win, win), jnp.float32).at[0, win // 2, win // 2].set(1.0)
+    img = jnp.zeros((P, win, win), jnp.float32).at[:, win // 2, win // 2].set(1.0)
     anchors = jnp.asarray([[100, 100], [40, 200], [128, 64], [77, 133]],
                           jnp.int32)
-    slots = jnp.zeros(P, jnp.int32)
     frac = jnp.asarray(
         [[0.25, -0.3], [-0.49, 0.49], [0.0, 0.0], [0.37, 0.12]], jnp.float32
     )
-    out = shared_apply_update(
-        jnp.zeros((P, H, H), jnp.float32), anchors, slots, img, win, 10.0,
-        interpret=True, frac_rc=frac,
+    out = apply_images(
+        jnp.zeros((P, H, H), jnp.float32), anchors, bilinear_place(img, frac),
+        win, 10.0,
     )
     out = np.asarray(out)
     ri = np.arange(H)
@@ -136,46 +135,48 @@ def test_bilinear_apply_centroid_exact():
         cc = (m.sum(0) * ri).sum() / tot
         want_r = anchors[p, 0] + frac[p, 0]
         want_c = anchors[p, 1] + frac[p, 1]
-        assert abs(cr - float(want_r)) < 1 / 128, (p, cr, float(want_r))
-        assert abs(cc - float(want_c)) < 1 / 128, (p, cc, float(want_c))
+        assert abs(cr - float(want_r)) < 1e-5, (p, cr, float(want_r))
+        assert abs(cc - float(want_c)) < 1e-5, (p, cc, float(want_c))
 
-    snapped = shared_apply_update(
-        jnp.zeros((P, H, H), jnp.float32), anchors, slots, img, win, 10.0,
-        interpret=True, frac_rc=None,
-    )
-    snapped = np.asarray(snapped)
+    snapped = np.asarray(apply_images(
+        jnp.zeros((P, H, H), jnp.float32), anchors, img, win, 10.0,
+    ))
     for p in range(P):
         r, c = np.unravel_index(np.argmax(snapped[p]), snapped[p].shape)
         assert (r, c) == (int(anchors[p, 0]), int(anchors[p, 1])), (p, r, c)
 
 
-def test_bilinear_fallback_matches_pallas():
-    """The XLA fallback's bilinear blend must match the Pallas kernel's
-    (same sub-cell semantics on both dispatch paths)."""
-    from unittest import mock
-
-    pf = PFConfig(n_particles=6, update_theta_slots=16, update_bilinear=True)
+def test_bilinear_update_matches_snapped_on_lattice():
+    """update_bilinear through shared_update: at cell-center poses (zero
+    fractional offset) the blend is the identity, so the result equals the
+    snapped update (to the f32 rounding of the cell-center offset);
+    off-lattice it redistributes but preserves the evidence mass."""
+    pf = PFConfig(n_particles=6, update_theta_slots=16, update_bilinear=True,
+                  update_exact_endpoints=False)
+    pf_snap = dataclasses.replace(pf, update_bilinear=False)
     cfg = dataclasses.replace(
         CFG, grid=dataclasses.replace(CFG.grid, height=256, width=256),
     )
+    res = cfg.grid.resolution
     rng = np.random.default_rng(13)
-    poses = jnp.asarray(np.stack([
-        rng.uniform(7.0, 9.0, 6), rng.uniform(7.0, 9.0, 6),
+    cells = rng.integers(80, 170, (6, 2))
+    on = np.stack([
+        cfg.grid.origin_x + (cells[:, 1] + 0.5) * res,
+        cfg.grid.origin_y + (cells[:, 0] + 0.5) * res,
         rng.uniform(-0.1, 0.1, 6),
-    ], axis=1), jnp.float32)
+    ], axis=1).astype(np.float32)
     ranges = _ranges(17)
     maps0 = jnp.zeros((6, 256, 256), jnp.float32)
-    via_pallas = np.asarray(
-        shared_update(jnp.array(maps0), poses, ranges, cfg, pf)
-    )
-    with mock.patch(
-        "slam2d_tpu.ops.pallas_apply.shared_apply_supported",
-        return_value=False,
-    ):
-        via_xla = np.asarray(
-            shared_update(jnp.array(maps0), poses, ranges, cfg, pf)
-        )
-    np.testing.assert_allclose(via_pallas, via_xla, atol=2e-3)
+    a = np.asarray(shared_update(maps0, jnp.asarray(on), ranges, cfg, pf))
+    b = np.asarray(shared_update(maps0, jnp.asarray(on), ranges, cfg, pf_snap))
+    np.testing.assert_allclose(a, b, atol=2e-4)
+    off = on.copy()
+    off[:, :2] += rng.uniform(-0.04, 0.04, (6, 2)).astype(np.float32)
+    a = np.asarray(shared_update(maps0, jnp.asarray(off), ranges, cfg, pf))
+    b = np.asarray(shared_update(maps0, jnp.asarray(off), ranges, cfg, pf_snap))
+    np.testing.assert_allclose(a.sum(axis=(1, 2)), b.sum(axis=(1, 2)),
+                               rtol=1e-4)
+    assert np.abs(a - b).max() > 0.01
 
 
 def test_quantized_per_particle_matches_shared_marks():
@@ -276,9 +277,6 @@ def test_subcell_anchors_reduce_quantization():
         pf = PFConfig(n_particles=P, update_mode="shared",
                       update_theta_slots=8, update_subcell=q,
                       update_exact_endpoints=False)
-        # shared_update donates its logodds argument (donate_argnums=(0,));
-        # pass a fresh copy per iteration so the q=2 call never touches a
-        # deleted buffer on backends that honor donation (TPU).
         out = shared_update(jnp.array(maps0), poses, ranges, cfg, pf)
         errs[q] = float(jnp.mean(jnp.abs(out - exact)))
     assert errs[2] < errs[1], errs
@@ -342,14 +340,11 @@ def test_exact_endpoints_match_per_particle_marks():
         assert err_exact < 0.5 * err_snap, (err_exact, err_snap)
 
 
-def test_fused_endpoints_match_separate_pass():
-    """The in-kernel fused exact-endpoint pass (ops/pallas_apply
-    fused_ep) must reproduce the separate _exact_endpoint_pass. On the
-    bf16 production dtype the two are BIT-identical (both add
-    bf16-quantized l_occ marks). On f32 maps a small tolerance covers a
-    CPU-only dispatch difference: the unfused endpoint_update picks the
-    exact-scatter accumulator on CPU while the fused kernel always uses
-    the bf16 one-hot MXU contraction — on TPU both use the mxu form."""
+def test_exact_endpoints_bf16_maps_track_f32():
+    """The exact-endpoint shared update on the production bf16 map dtype
+    (images follow the map dtype) tracks the f32 run within bf16
+    rounding, near the map border and in the interior, and the marks are
+    actually there."""
     cfg = dataclasses.replace(
         CFG,
         grid=dataclasses.replace(
@@ -361,18 +356,18 @@ def test_fused_endpoints_match_separate_pass():
     poses = np.tile(np.array([[25.0, 25.0, 0.2]], np.float32), (P, 1))
     poses[:, :2] += rng.normal(0, 0.3, (P, 2))
     poses[:, 2] += rng.normal(0, 0.08, P)
+    poses[0, :2] = [0.4, 49.7]              # window hangs off the map corner
     r = rng.uniform(0.5, 7.5, CFG.sensor.n_beams).astype(np.float32)
     r[::5] = CFG.sensor.max_range          # no-hit beams stay masked
     maps0 = rng.normal(0, 0.5, (P, 512, 512)).astype(np.float32)
-    for dtype, tol in ((jnp.bfloat16, 0.0), (jnp.float32, 5e-3)):
-        pf_f = PFConfig(n_particles=P, update_fused_endpoints=True)
-        pf_u = PFConfig(n_particles=P, update_fused_endpoints=False)
-        out_f = np.asarray(shared_update(
-            jnp.asarray(maps0, dtype), jnp.asarray(poses),
-            jnp.asarray(r), cfg, pf_f)).astype(np.float32)
-        out_u = np.asarray(shared_update(
-            jnp.asarray(maps0, dtype), jnp.asarray(poses),
-            jnp.asarray(r), cfg, pf_u)).astype(np.float32)
-        assert np.abs(out_f - out_u).max() <= tol, dtype
-        # and the marks are actually there (not a no-op fused path)
-        assert np.abs(out_f - maps0).max() > 0.5
+    pf = PFConfig(n_particles=P)
+    outs = {}
+    for dtype in (jnp.bfloat16, jnp.float32):
+        m = jnp.asarray(maps0, dtype)
+        out = shared_update(m, jnp.asarray(poses), jnp.asarray(r), cfg, pf)
+        assert out.dtype == dtype
+        outs[dtype] = np.asarray(out, np.float32)
+    # bf16 ulp at |logodds| <= 4 is 2^-6; two roundings (map, sum)
+    np.testing.assert_allclose(outs[jnp.bfloat16], outs[jnp.float32],
+                               atol=0.04)
+    assert np.abs(outs[jnp.float32] - maps0).max() > 0.5
